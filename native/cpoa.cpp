@@ -1,7 +1,7 @@
-// cpoa: native single-thread fused POA engine for smoothxg_tpu.
+// cpoa: native single-thread fused POA engine for smoothxg_jax.
 //
 // Implements EXACTLY the fused POA semantics specified by
-// smoothxg_tpu/ops/poa_fused.py (the numpy oracle): sequence-vs-DAG DP with
+// smoothxg_jax/ops/poa_fused.py (the numpy oracle): sequence-vs-DAG DP with
 // convex (dual-affine) gaps — score-identical to the spoa engine the
 // reference drives per block (reference: src/smooth.cpp:736-753, params
 // m,n,g,e,q,c from src/main.cpp:322-327) — followed by value-rederivation
@@ -11,8 +11,9 @@
 // once:
 //   1. the honest single-thread CPU baseline for bench.py's vs_baseline
 //      (BASELINE.md demands a real CPU POA engine, not the numpy DP),
-//   2. the fast host fallback for blocks the Pallas kernel cannot take,
-//   3. a second implementation to cross-check the fused Pallas kernel.
+//   2. the fast host fallback for blocks the CUDA kernel cannot take,
+//   3. the reference the CUDA kernel (native/cuda/poa.cu) is checked
+//      against bit for bit.
 //
 // Build: make -C native  (g++ -O3 -march=native -shared -fPIC)
 #include <cstdint>
@@ -65,8 +66,8 @@ struct Params {
 //     R(blo-1) = NEG + (blo-1)*ext
 // which is integer-identical to the iterated recurrence
 // f' = max(f - ext, hq - open) (both are the max over the same candidate
-// set; the Pallas kernel uses the same closed form on device,
-// ops/poa_pallas_fused.py).  Breaking the loop-carried dependency this way
+// set; the CUDA kernel uses the same closed form on device,
+// native/cuda/poa.cu).  Breaking the loop-carried dependency this way
 // lets the whole row run as 16-lane AVX-512 with a log-step prefix max;
 // the scalar path computes the identical closed form.
 static int32_t fill_row(const int32_t* hpmax, const int32_t* e1p,
@@ -216,8 +217,7 @@ static thread_local Scratch g_scratch;
 
 // int16 local-mode floor for the E channels: any clamped value is below
 // every score that can win a max in local mode (hq >= 0, M >= -n), so
-// clamping is alignment-invisible (same argument as the Pallas kernel's
-// packed-int16 mode, ops/poa_pallas_fused.py)
+// clamping is alignment-invisible (hq >= 0 bounds every winning score)
 constexpr int32_t NEGS16 = -16000;
 
 
@@ -636,7 +636,7 @@ struct FusedPOA {
                 if (chan == 0) {
                     // nearest F origin k, channel 1 before channel 2 at
                     // each k (single backward scan; matches poa_host and
-                    // the Pallas kernel move-for-move)
+                    // the CUDA kernel move-for-move)
                     bool found = false;
                     const int32_t ops[2] = {p.g, p.q};
                     const int32_t exs[2] = {p.e, p.c};
@@ -693,7 +693,7 @@ struct FusedPOA {
         // Ring lookups see the round-start ring state: splices of this
         // round's new nodes are deferred to the end of the position loop
         // (targets are distinct within one alignment, so they commute).
-        // Matches ops/poa_fused.FusedPOA.thread and the Pallas kernel.
+        // Matches ops/poa_fused.FusedPOA.thread and the CUDA kernel.
         vector<int32_t> path;
         path.reserve(L);
         vector<std::pair<int32_t, int32_t>> ring_splices;

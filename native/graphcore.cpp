@@ -1,4 +1,4 @@
-// graphcore: native host graph kernel for smoothxg_tpu.
+// graphcore: native host graph kernel for smoothxg_jax.
 //
 // Implements the hot host-side graph transform of the pipeline —
 // unchop (merge maximal non-branching, path-safe runs) + topological sort +
@@ -6,7 +6,7 @@
 // odgi::algorithms::unchop / topological_order usage
 // (reference: deps/odgi via src/main.cpp:1011, src/smooth.cpp:538-550).
 //
-// Graph encoding (matches smoothxg_tpu.graph.mutable):
+// Graph encoding (matches smoothxg_jax.graph.mutable):
 //   handle  = node_id << 1 | is_reverse          (node ids 1-based, dense)
 //   side    = node_id << 1 | end                 (end 1 = right/forward-out)
 //   edge    = pair of handles (from, to): connects out_side(from), in_side(to)

@@ -1,7 +1,7 @@
 // Path-guided 1D SGD graph sort — native host backend.
 //
 // Implements the same term-update semantics as the JAX kernel in
-// smoothxg_tpu/ops/sgd.py (reference: src/prep.cpp:30-125, odgi
+// smoothxg_jax/ops/sgd.py (reference: src/prep.cpp:30-125, odgi
 // path_linear_sgd): per update, sample a path step uniformly, a second
 // step of the same path at a zipf-distributed rank distance (cooled to
 // <=1000 after cooling_start), and pull the two nodes' 1D positions

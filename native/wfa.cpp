@@ -1,6 +1,6 @@
 // Bounded affine wavefront alignment (WFA) with adaptive reduction.
 //
-// Native tier of smoothxg_tpu/ops/wfa.py — exact same algorithm and
+// Native tier of smoothxg_jax/ops/wfa.py — exact same algorithm and
 // traceback tie-breaks, so the two produce identical (score, cigar) pairs
 // (fuzz-verified in tests/test_native.py).  The reference uses the WFA
 // library's bounded reduced mode for identity clustering in the block

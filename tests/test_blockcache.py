@@ -1,7 +1,7 @@
 """Compressed block-graph cache: round-trip + sampling policy
 (reference: src/zstdutil.cpp codec + src/main.cpp:616-651 load policy)."""
-from smoothxg_tpu.graph.mutable import MutableGraph
-from smoothxg_tpu.utils.blockcache import (
+from smoothxg_jax.graph.mutable import MutableGraph
+from smoothxg_jax.utils.blockcache import (
     BlockGraphCache, compress_block, decompress_block, sample_rate_for)
 
 

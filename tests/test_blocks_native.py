@@ -5,10 +5,10 @@ longest-first order, and toposplit component order."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.prep import prep
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.prep import prep
 
 
 def _sig(bs):
@@ -30,7 +30,7 @@ def drb1_idx(drb1_path):
     (300 * 12, 300, 50, 0),         # many small blocks, tight jumps
 ])
 def test_native_sweep_matches_python(drb1_idx, params):
-    from smoothxg_tpu.native_bindings import load
+    from smoothxg_jax.native_bindings import load
     lib = load()
     if lib is None or not hasattr(lib, "bf_sweep"):  # pragma: no cover
         pytest.skip("bf_sweep unavailable")

@@ -1,9 +1,9 @@
 """CLI surface: flag plumbing, debug dumps, index load (-i)."""
 import os
 
-from smoothxg_tpu.cli import main as cli_main
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
+from smoothxg_jax.cli import main as cli_main
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
 
 TINY = """H\tVN:Z:1.0
 S\t1\tACGTACGTAA

@@ -1,7 +1,7 @@
 """Consensus graph derivation tests (pipeline/consensus_graph.py)."""
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.graph.mutable import MutableGraph
-from smoothxg_tpu.pipeline.consensus_graph import (
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.graph.mutable import MutableGraph
+from smoothxg_jax.pipeline.consensus_graph import (
     create_consensus_graph, parse_consensus_spec, displayname)
 
 
@@ -64,8 +64,8 @@ def test_pooled_link_groups_byte_identical(tmp_path, monkeypatch):
     """Fanning link groups over the worker pool (threads>1 at scale) must
     be byte-identical to the serial pass (reference OMPs the group loop,
     src/consensus_graph.cpp:709)."""
-    import smoothxg_tpu.pipeline.consensus_graph as CG
-    from smoothxg_tpu.io.gfa import write_gfa
+    import smoothxg_jax.pipeline.consensus_graph as CG
+    from smoothxg_jax.io.gfa import write_gfa
 
     g = build_graph_with_variant(allele_len=500, ref_len=300)
     idx = FlatIndex(g)

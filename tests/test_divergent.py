@@ -4,7 +4,7 @@ The DRB1 haplotypes are near-identical, so the ctest-equivalent run
 never exercises the break stage's identity clustering (reference:
 src/breaks.cpp:325-575 — exact dedup, mash estimate, bounded WFA
 gap-compressed identity, greedy group splitting).  These tests
-manufacture a divergent graph (smoothxg_tpu.io.synth: haplogroup
+manufacture a divergent graph (smoothxg_jax.io.synth: haplogroup
 bubbles at 2-12% substitution over tiled DRB1) and assert that
 
   * blocks genuinely cut and split at -I 0.95 (break_stats counters),
@@ -14,13 +14,13 @@ bubbles at 2-12% substitution over tiled DRB1) and assert that
 """
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.io.synth import make_divergent_gfa
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.breaks import break_blocks
-from smoothxg_tpu.pipeline.prep import prep
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.io.synth import make_divergent_gfa
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.breaks import break_blocks
+from smoothxg_jax.pipeline.prep import prep
+from smoothxg_jax.pipeline.run import Config, run_smoothing
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +61,7 @@ def test_device_minhash_split_matches_mirror(divergent_path, monkeypatch):
     host route the partitions may differ on identity-borderline blocks
     (observed: one of 23 splits on this fixture) — a documented property
     of the 32-bit estimator, asserted loosely here."""
-    import smoothxg_tpu.ops.minhash_jax as MJ
+    import smoothxg_jax.ops.minhash_jax as MJ
     g = prep(read_gfa(divergent_path), 100, use_sgd=True)
     idx = FlatIndex(g)
     kw = dict(max_poa_length=1400,
@@ -97,7 +97,7 @@ def test_device_wfa_split_matches_mirror(divergent_path, monkeypatch):
     (bit-parity of the DP is pinned in test_ident_jax); vs the host
     WFA route the partitions agree loosely (different estimators:
     banded counts-carrying DP vs adaptive-reduced WFA traceback)."""
-    import smoothxg_tpu.ops.ident_jax as IJ
+    import smoothxg_jax.ops.ident_jax as IJ
     g = prep(read_gfa(divergent_path), 100, use_sgd=True)
     idx = FlatIndex(g)
     kw = dict(max_poa_length=1400,
@@ -106,7 +106,7 @@ def test_device_wfa_split_matches_mirror(divergent_path, monkeypatch):
               min_dedup_depth_for_block_splitting=2)   # mash stays off
 
     def run(device_wfa):
-        from smoothxg_tpu.pipeline.blocks import Blockset
+        from smoothxg_jax.pipeline.blocks import Blockset
         bs = smoothable_blocks(idx, 700 * 24, 700, 5000, 5000)
         sub = Blockset()          # first blocks only: keeps the test fast
         for n, b in enumerate(bs):
@@ -137,7 +137,7 @@ def test_device_wfa_split_matches_mirror(divergent_path, monkeypatch):
 
 @pytest.mark.slow
 def test_divergent_full_pipeline_oracle(divergent_path, tmp_path):
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
     out = str(tmp_path / "out.gfa")

@@ -6,8 +6,8 @@ import os
 
 import pytest
 
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.pipeline.run import Config, run_smoothing
 
 
 @pytest.mark.slow

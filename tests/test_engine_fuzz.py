@@ -1,21 +1,22 @@
-"""Randomized four-way engine parity sweep: numpy fused oracle = native
-C++ = fused Pallas kernel (interpret), across modes, band settings, seq
-counts, divergence levels, indel mixes, and degenerate inputs.  Bit-for-
-bit on bases, rings, topo order, per-sequence paths, and groups."""
+"""Randomized engine parity sweep: numpy fused oracle = native C++ = the
+whole-block device engine (scheduler, packing and decoding around the
+reference kernel plug on the CPU; tests/test_poa_cuda.py runs the CUDA
+kernel itself on a GPU), across modes, band settings, seq counts,
+divergence levels, indel mixes, and degenerate inputs.  Bit-for-bit on
+bases, rings, topo order, per-sequence paths, and groups."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops import poa_native
-from smoothxg_tpu.ops.poa_fused import FusedPOA
-from smoothxg_tpu.ops.poa_host import POAParams
-from smoothxg_tpu.ops.poa_pallas_fused import FusedPallasEngine
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.ops import poa_native
+from smoothxg_jax.ops.poa_fused import FusedPOA
+from smoothxg_jax.ops.poa_host import POAParams
+from smoothxg_jax.ops.poa_engine import BlockPOAEngine
+from smoothxg_jax.utils.dna import encode_seq
 
 
 @pytest.fixture(scope="module")
 def engine():
-    return FusedPallasEngine(shape=(512, 256), max_seqs=16, max_batch=4,
-                             interpret=True)
+    return BlockPOAEngine()
 
 
 def _random_block(rng):

@@ -1,4 +1,5 @@
-"""Golden structural metrics for the full 3-iteration DRB1 pipeline.
+"""Golden structural metrics for the full 3-iteration pipeline on the seeded
+DRB1-shaped graph (the drb1_path fixture, smoothxg_jax.io.synth).
 
 The reference repo ships no golden outputs and its deps/ submodules are
 empty (binary unbuildable in this image), so reference-exact comparison is
@@ -18,40 +19,36 @@ tight bounds, plus hard invariants the reference also guarantees:
     break localizes to a stage instead of just "hash changed".
 
 Engine: native C++ (bit-for-bit fused-oracle parity is covered by
-tests/test_poa_native.py; the TPU kernel's parity by
-tests/test_poa_pallas_fused.py) — so a drift here isolates to the
+tests/test_poa_native.py; the CUDA kernel's parity by
+tests/test_poa_cuda.py) — so a drift here isolates to the
 host pipeline stages.
 """
 import pytest
 
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.pipeline.run import Config, run_smoothing
 
-# recorded 2026-08-18 from the canonical run (engine=native, use_sgd=True;
-# re-recorded after SGD moved to the native sequential backend — a benign
-# reordering with measurably better 1D linearity (mean step rank-jump 3.2
-# vs 6.0 for the batched JAX formulation): block count 18 -> 19, all hard
-# invariants unchanged)
+# recorded from the canonical run (engine=native, use_sgd=True) on the
+# seeded DRB1-shaped graph of smoothxg_jax.io.synth (seed 0)
 GOLDEN = {
-    "nodes": 4933,
-    "edges": 6736,
-    "paths": 31,          # 12 input + 19 consensus
-    "steps": 37264,
-    "cons": 19,
-    "maf_blocks": 19,
-    "total_bp": 191572,   # input 163,416 + consensus paths
+    "nodes": 412,
+    "edges": 536,
+    "paths": 41,          # 12 input + 29 consensus
+    "steps": 2670,
+    "cons": 29,
+    "maf_blocks": 29,
+    "total_bp": 200907,   # input 156,886 + consensus paths
 }
-# byte-exact snapshot of the same canonical run (recorded 2026-08-19 from
-# two independent processes producing identical bytes)
+# byte-exact snapshot of the same canonical run (two runs, identical bytes)
 GOLDEN_SHA256 = {
-    "gfa": "aa1067cf77c3697ebb2a35d7aeafc9ced4b253b34b1fbeef0db3e78054175f9a",
-    "maf": "8038b621ea2e6887a4c5c4057f15e0fe1e72d5ba1c8979ffd8377bffc1f991ed",
+    "gfa": "07fc87f4e7735ef3bec397cff70042e80d80505cab0c6c405d4e58b0c7f85149",
+    "maf": "81a77a77e22e0807aa813f968953a3bfc076510412467c80cdfa3a189999e63d",
 }
 
 
 @pytest.mark.slow
 def test_golden_drb1_three_iterations(drb1_path, tmp_path):
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
     out = str(tmp_path / "out.gfa")

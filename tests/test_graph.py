@@ -7,10 +7,10 @@ sequence is preserved byte-exactly by every transform.
 import numpy as np
 import pytest
 
-from smoothxg_tpu.graph.mutable import MutableGraph, handle, flip
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa, write_gfa
-from smoothxg_tpu.utils.dna import revcomp
+from smoothxg_jax.graph.mutable import MutableGraph, handle, flip
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa, write_gfa
+from smoothxg_jax.utils.dna import revcomp
 
 
 def tiny_graph():

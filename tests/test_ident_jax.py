@@ -4,10 +4,10 @@ agreement with the host WFA identity on realistic pairs."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops.ident_jax import (DeviceBandedIdentity,
+from smoothxg_jax.ops.ident_jax import (DeviceBandedIdentity,
                                         host_banded_identity,
                                         identity_from_counts)
-from smoothxg_tpu.ops.wfa import gap_compressed_identity, wfa_align
+from smoothxg_jax.ops.wfa import gap_compressed_identity, wfa_align
 
 rng = np.random.default_rng(5)
 

@@ -19,9 +19,9 @@ from dataclasses import dataclass
 
 import pytest
 
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
-from smoothxg_tpu.utils.dna import revcomp
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.pipeline.run import Config, run_smoothing
+from smoothxg_jax.utils.dna import revcomp
 
 
 @dataclass

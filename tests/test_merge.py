@@ -1,7 +1,7 @@
 """MAF merge-group tests (pipeline/merge.py)."""
-from smoothxg_tpu.graph.mutable import MutableGraph
-from smoothxg_tpu.pipeline.merge import merge_blocks_pass
-from smoothxg_tpu.pipeline.smooth import BlockResult, MafRow
+from smoothxg_jax.graph.mutable import MutableGraph
+from smoothxg_jax.pipeline.merge import merge_blocks_pass
+from smoothxg_jax.pipeline.smooth import BlockResult, MafRow
 
 
 def mk_result(bid, rows_by_path, cons_name=None, cons_row=None, groom_flip=False):

@@ -3,8 +3,8 @@ behavioral agreement with the classic uint64 host route."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops.minhash import kmer_hashes, mash_distance
-from smoothxg_tpu.ops.minhash_jax import (DeviceMinHash, host_distance_matrix,
+from smoothxg_jax.ops.minhash import kmer_hashes, mash_distance
+from smoothxg_jax.ops.minhash_jax import (DeviceMinHash, host_distance_matrix,
                                           kmer_hashes32)
 
 rng = np.random.default_rng(11)

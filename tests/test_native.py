@@ -1,9 +1,9 @@
 """Native graphcore (C++ unchop/toposort) vs the pure-Python implementation."""
 import pytest
 
-from smoothxg_tpu.graph.mutable import MutableGraph, flip
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.native_bindings import load
+from smoothxg_jax.graph.mutable import MutableGraph, flip
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.native_bindings import load
 
 
 requires_native = pytest.mark.skipif(load() is None,
@@ -62,7 +62,7 @@ def test_native_wfa_parity_fuzz():
     numpy oracle across random pairs, bounds, and reduction settings."""
     import numpy as np
 
-    from smoothxg_tpu.ops.wfa import _native_lib, wfa_align
+    from smoothxg_jax.ops.wfa import _native_lib, wfa_align
     if _native_lib() is None:      # pragma: no cover
         pytest.skip("libwfa.so unavailable")
     rng = np.random.default_rng(42)

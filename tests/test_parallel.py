@@ -1,8 +1,8 @@
 """Mesh sharding + SGD kernel tests (8 virtual CPU devices)."""
 import numpy as np
 
-from smoothxg_tpu.graph.mutable import MutableGraph
-from smoothxg_tpu.ops.sgd import path_sgd_order
+from smoothxg_jax.graph.mutable import MutableGraph
+from smoothxg_jax.ops.sgd import path_sgd_order
 
 
 def test_sgd_recovers_linear_order():
@@ -63,7 +63,7 @@ def test_sgd_native_hogwild_threads():
 def test_sharded_poa_round_runs_on_mesh():
     import jax
 
-    from smoothxg_tpu.parallel.mesh import make_mesh, sharded_poa_round
+    from smoothxg_jax.parallel.mesh import make_mesh, sharded_poa_round
 
     n_dev = len(jax.devices())
     assert n_dev >= 8, "conftest should provide 8 virtual devices"
@@ -87,8 +87,8 @@ def test_sharded_poa_round_runs_on_mesh():
 
 
 def test_flatindex_save_load(tmp_path, drb1_path):
-    from smoothxg_tpu.graph.index import FlatIndex
-    from smoothxg_tpu.io.gfa import read_gfa
+    from smoothxg_jax.graph.index import FlatIndex
+    from smoothxg_jax.io.gfa import read_gfa
 
     idx = FlatIndex(read_gfa(drb1_path))
     f = str(tmp_path / "idx.npz")
@@ -100,49 +100,6 @@ def test_flatindex_save_load(tmp_path, drb1_path):
         assert idx2.path_seq(pid) == idx.path_seq(pid)
 
 
-def test_sharded_pallas_round_matches_single():
-    """The Pallas kernel sharded over the 8-device mesh (shard_map,
-    interpret) must produce the same moves as the single-device path."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from smoothxg_tpu.ops.poa_graph import POAGraph
-    from smoothxg_tpu.ops.poa_host import POAParams
-    from smoothxg_tpu.ops.poa_pallas import PallasPOAEngine, _pallas_fn
-    from smoothxg_tpu.parallel.mesh import make_mesh, sharded_pallas_round
-    from smoothxg_tpu.utils.dna import encode_seq
-
-    rng = np.random.default_rng(5)
-    p = POAParams(local=True)
-    tasks = []
-    for b in range(8):
-        base = "".join("ACGT"[i] for i in rng.integers(0, 4, 40))
-        g = POAGraph()
-        g.add_sequence(encode_seq(base), 1)
-        s = list(base)
-        s[3] = "T"
-        s[17] = "G"
-        tasks.append((g, encode_seq("".join(s)), p))
-
-    VW = LW = 128
-    PB = 4
-    slen, nv, par, ninfo, seq, orders = PallasPOAEngine._pack(
-        tasks, list(range(8)), VW, LW, PB, 8)
-
-    mesh = make_mesh(8)
-    codes_m, meta_m = sharded_pallas_round(
-        mesh, jnp.asarray(slen), jnp.asarray(nv), jnp.asarray(par),
-        jnp.asarray(ninfo), jnp.asarray(seq),
-        VW=VW, LW=LW, P=PB, local=True, interpret=True)
-
-    fn = _pallas_fn(VW, LW, PB, True, True, 8)
-    codes_s, meta_s = fn(jnp.asarray(slen), jnp.asarray(nv),
-                         jnp.asarray(par), jnp.asarray(ninfo),
-                         jnp.asarray(seq))
-    assert np.array_equal(np.asarray(meta_m), np.asarray(meta_s))
-    assert np.array_equal(np.asarray(codes_m), np.asarray(codes_s))
-
-
 def test_sgd_quality_on_drb1(drb1_path):
     """Sort quality drives block finding (VERDICT weak #7): on the real
     DRB1 graph, SGD ordering must cut the mean path-jump (mean |rank
@@ -150,11 +107,11 @@ def test_sgd_quality_on_drb1(drb1_path):
     sweeps gate on, reference src/blocks.hpp max_path_jump) well below
     the input GFA order, and block finding on the SGD order must not
     fragment (block count within 2x of the input-order count)."""
-    from smoothxg_tpu.graph.index import FlatIndex
-    from smoothxg_tpu.io.gfa import read_gfa
-    from smoothxg_tpu.ops.sgd import path_sgd_order
-    from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-    from smoothxg_tpu.pipeline.prep import prep
+    from smoothxg_jax.graph.index import FlatIndex
+    from smoothxg_jax.io.gfa import read_gfa
+    from smoothxg_jax.ops.sgd import path_sgd_order
+    from smoothxg_jax.pipeline.blocks import smoothable_blocks
+    from smoothxg_jax.pipeline.prep import prep
 
     def mean_jump(gr):
         tot = n = 0
@@ -188,8 +145,8 @@ def test_sgd_jax_route_quality_matches_native(drb1_path):
     iteration) must match the sequential native backend's 1D linearity:
     mean step rank-jump within 1.2x (VERDICT r2: the fully-batched
     averaging formulation measured 6.0 vs 3.2)."""
-    from smoothxg_tpu.io.gfa import read_gfa
-    from smoothxg_tpu.ops.sgd import path_sgd_order
+    from smoothxg_jax.io.gfa import read_gfa
+    from smoothxg_jax.ops.sgd import path_sgd_order
 
     g = read_gfa(drb1_path).compact()
 

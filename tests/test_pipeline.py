@@ -3,13 +3,13 @@ subset, ops (autocorr, minhash, wfa)."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.ops.autocorr import repeat
-from smoothxg_tpu.ops.minhash import kmer_hashes, mash_distance
-from smoothxg_tpu.ops.wfa import wfa_align, gap_compressed_identity
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.breaks import break_blocks
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.ops.autocorr import repeat
+from smoothxg_jax.ops.minhash import kmer_hashes, mash_distance
+from smoothxg_jax.ops.wfa import wfa_align, gap_compressed_identity
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.breaks import break_blocks
 
 
 @pytest.fixture(scope="module")
@@ -102,10 +102,10 @@ def test_autocorr_matches_reference_on_drb1(drb1_path):
     breaker would screen and assert the same negative result; a planted
     period-997 tandem appended to a DRB1 sequence must still be caught."""
     import numpy as np
-    from smoothxg_tpu.graph.index import FlatIndex
-    from smoothxg_tpu.io.gfa import read_gfa
-    from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-    from smoothxg_tpu.pipeline.prep import prep
+    from smoothxg_jax.graph.index import FlatIndex
+    from smoothxg_jax.io.gfa import read_gfa
+    from smoothxg_jax.pipeline.blocks import smoothable_blocks
+    from smoothxg_jax.pipeline.prep import prep
 
     g = read_gfa(drb1_path)
     g = prep(g, 100, use_sgd=False)
@@ -136,10 +136,10 @@ def test_blockset_spill_roundtrip(drb1_path):
     """Past the spill threshold the blockset pages path ranges to a temp
     file (reference: mmmulti-backed blockset_t, src/blocks.hpp:70-120);
     iteration and random access must match the in-memory store."""
-    from smoothxg_tpu.graph.index import FlatIndex
-    from smoothxg_tpu.io.gfa import read_gfa
-    from smoothxg_tpu.pipeline.blocks import Blockset, smoothable_blocks
-    from smoothxg_tpu.pipeline.prep import prep
+    from smoothxg_jax.graph.index import FlatIndex
+    from smoothxg_jax.io.gfa import read_gfa
+    from smoothxg_jax.pipeline.blocks import Blockset, smoothable_blocks
+    from smoothxg_jax.pipeline.prep import prep
 
     g = read_gfa(drb1_path)
     idx = FlatIndex(prep(g, 100, use_sgd=False))
@@ -160,7 +160,7 @@ def test_autocorr_batch_matches_host_oracle():
     counts on device + float64 statistics on host must be bit-identical
     to the scalar host loop, across repeats, non-repeats, short
     sequences, and mixed lengths in one batch."""
-    from smoothxg_tpu.ops.autocorr import repeat, repeat_batch
+    from smoothxg_jax.ops.autocorr import repeat, repeat_batch
     rng = np.random.default_rng(13)
     unit = "".join("ACGT"[i] for i in rng.integers(0, 4, 50))
     seqs = [

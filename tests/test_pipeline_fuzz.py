@@ -10,9 +10,9 @@ unmerged configs, serial and pooled.
 import numpy as np
 import pytest
 
-from smoothxg_tpu.graph.mutable import MutableGraph
-from smoothxg_tpu.io.gfa import write_gfa
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
+from smoothxg_jax.graph.mutable import MutableGraph
+from smoothxg_jax.io.gfa import write_gfa
+from smoothxg_jax.pipeline.run import Config, run_smoothing
 
 
 def _random_variation_graph(seed: int) -> MutableGraph:
@@ -60,7 +60,7 @@ def _random_variation_graph(seed: int) -> MutableGraph:
 @pytest.mark.slow
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzz_full_pipeline_oracle(seed, tmp_path):
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
     g = _random_variation_graph(seed)
@@ -82,7 +82,7 @@ def test_fuzz_full_pipeline_oracle(seed, tmp_path):
         tmp_base=str(tmp_path),
     )
     outp, _ = run_smoothing(cfg)
-    from smoothxg_tpu.io.gfa import read_gfa
+    from smoothxg_jax.io.gfa import read_gfa
     got = read_gfa(outp)
     assert got.path_count() >= len(orig)
     for name, seq in orig.items():

@@ -3,9 +3,9 @@ graph-update invariants, consensus, MSA."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops.poa_graph import POAGraph
-from smoothxg_tpu.ops.poa_host import align, POAParams, fill
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.ops.poa_graph import POAGraph
+from smoothxg_jax.ops.poa_host import align, POAParams, fill
+from smoothxg_jax.utils.dna import encode_seq
 
 
 def build(seqs, local=True, params=None):

@@ -9,9 +9,9 @@ threading.
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops.poa_fused import FusedPOA
-from smoothxg_tpu.ops.poa_host import POAParams, align, fill, node_ranks
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.ops.poa_fused import FusedPOA
+from smoothxg_jax.ops.poa_host import POAParams, align, fill, node_ranks
+from smoothxg_jax.utils.dna import encode_seq
 
 from test_poa_jax import CASES
 
@@ -73,7 +73,7 @@ def test_band_actually_masks():
     g = build(["ACGTACGTACGTACGT"], p)
     s = encode_seq("ACGTACGTACGTACGT")
     H, Hq, E1, E2, row_of, node_of_row = fill(g, s, p)
-    from smoothxg_tpu.ops.poa_host import NEG
+    from smoothxg_jax.ops.poa_host import NEG
     # row for node 0 (rank 1): band [1-2, 1+2] -> columns >= 4 masked
     assert H[1, 10] == NEG and H[1, len(s)] == NEG
     assert H[1, 1] != NEG

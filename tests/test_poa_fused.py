@@ -9,10 +9,10 @@ supports consensus + MSA.
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops.poa_fused import FusedHostEngine, FusedPOA
-from smoothxg_tpu.ops.poa_graph import POAGraph
-from smoothxg_tpu.ops.poa_host import POAParams, align as host_align
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.ops.poa_fused import FusedHostEngine, FusedPOA
+from smoothxg_jax.ops.poa_graph import POAGraph
+from smoothxg_jax.ops.poa_host import POAParams, align as host_align
+from smoothxg_jax.utils.dna import encode_seq
 
 from test_poa_jax import CASES
 
@@ -108,10 +108,10 @@ def test_fused_engine_batch():
 def test_fused_in_smooth_blocks():
     """smooth_blocks with a block-fused engine produces lace-valid results
     identical in path sequences to the round-based host engine."""
-    from smoothxg_tpu.graph.index import FlatIndex
-    from smoothxg_tpu.graph.mutable import MutableGraph
-    from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-    from smoothxg_tpu.pipeline.smooth import smooth_blocks
+    from smoothxg_jax.graph.index import FlatIndex
+    from smoothxg_jax.graph.mutable import MutableGraph
+    from smoothxg_jax.pipeline.blocks import smoothable_blocks
+    from smoothxg_jax.pipeline.smooth import smooth_blocks
 
     rng = np.random.default_rng(13)
     g = MutableGraph()

@@ -6,10 +6,10 @@ resulting graph must remain sequence-preserving)."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops.poa_graph import POAGraph
-from smoothxg_tpu.ops.poa_host import align as host_align, fill, POAParams
-from smoothxg_tpu.ops.poa_jax import JaxPOAEngine
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.ops.poa_graph import POAGraph
+from smoothxg_jax.ops.poa_host import align as host_align, fill, POAParams
+from smoothxg_jax.ops.poa_jax import JaxPOAEngine
+from smoothxg_jax.utils.dna import encode_seq
 
 
 def aln_score(graph, seq, aln, p: POAParams) -> int:

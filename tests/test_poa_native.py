@@ -3,10 +3,10 @@ bit-for-bit parity on graph structure, rings, topo order, and paths."""
 import numpy as np
 import pytest
 
-from smoothxg_tpu.ops import poa_native
-from smoothxg_tpu.ops.poa_fused import FusedPOA
-from smoothxg_tpu.ops.poa_host import POAParams
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.ops import poa_native
+from smoothxg_jax.ops.poa_fused import FusedPOA
+from smoothxg_jax.ops.poa_host import POAParams
+from smoothxg_jax.utils.dna import encode_seq
 
 from test_poa_jax import CASES
 
@@ -63,7 +63,7 @@ def test_native_random_parity(local, tier):
 
 
 def test_native_engine_in_smooth():
-    from smoothxg_tpu.ops.poa_fused import FusedHostEngine
+    from smoothxg_jax.ops.poa_fused import FusedHostEngine
 
     p = POAParams(local=True)
     rng = np.random.default_rng(21)

@@ -1,7 +1,7 @@
 """poolidx: the temp-file index spill shared by every -t pool stage."""
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline import poolidx
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.pipeline import poolidx
 
 
 def test_payload_cached_per_index(drb1_path):

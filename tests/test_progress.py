@@ -3,7 +3,7 @@ import io
 import sys
 import time
 
-from smoothxg_tpu.utils.progress import Log, ProgressMeter
+from smoothxg_jax.utils.progress import Log, ProgressMeter
 
 
 def test_meter_counts_and_line_format():
@@ -21,7 +21,7 @@ def test_meter_thread_reports_progress(capsys):
     time.sleep(0.2)
     pm.finish()
     err = capsys.readouterr().err
-    assert "[smoothxg_tpu::t]" in err and "ETA" in err
+    assert "[smoothxg_jax::t]" in err and "ETA" in err
 
 
 def test_meter_quiet_when_done_fast(capsys):

@@ -2,9 +2,6 @@
 
   * merge.py groom-flips the FIRST group-starting block too
     (reference: src/smooth.cpp:1800-1829),
-  * Pallas traceback stuck/overrun flags trigger a host-oracle fallback
-    instead of a silent truncated alignment,
-  * fallback_reasons attributes L-bound rejections to 'L',
   * Config raises when neither n_haps nor max_block_weight is set,
   * MAF consensus row gets the same padding blank/trim as read rows
     (reference: src/smooth.cpp:774-831),
@@ -14,17 +11,16 @@
 import numpy as np
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.graph.mutable import MutableGraph
-from smoothxg_tpu.io.gfa import write_gfa
-from smoothxg_tpu.ops.poa_host import POAParams, align as host_align
-from smoothxg_tpu.ops.poa_graph import POAGraph
-from smoothxg_tpu.ops.poa_pallas import PallasPOAEngine
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.merge import merge_blocks_pass
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
-from smoothxg_tpu.pipeline.smooth import BlockResult, MafRow, smooth_blocks
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.graph.mutable import MutableGraph
+from smoothxg_jax.io.gfa import write_gfa
+from smoothxg_jax.ops.poa_host import POAParams, align as host_align
+from smoothxg_jax.ops.poa_graph import POAGraph
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.merge import merge_blocks_pass
+from smoothxg_jax.pipeline.run import Config, run_smoothing
+from smoothxg_jax.pipeline.smooth import BlockResult, MafRow, smooth_blocks
+from smoothxg_jax.utils.dna import encode_seq
 
 GAP = ord("-")
 
@@ -68,38 +64,6 @@ def test_config_requires_r_or_w(tmp_path):
     cfg = Config(gfa_in="x.gfa", smoothed_out=str(tmp_path / "o.gfa"))
     with pytest.raises(ValueError, match="n_haps"):
         run_smoothing(cfg)
-
-
-def test_fallback_reason_attribution():
-    eng = PallasPOAEngine.__new__(PallasPOAEngine)
-    eng.interpret = False
-    eng.uniform_shapes = PallasPOAEngine.SHAPES
-    wide, tall = PallasPOAEngine.SHAPES
-    # V fits the widest shape but L fits none -> 'L'
-    assert eng._dims(100, tall[1] + wide[1]) is None
-    assert eng._dims_reject_reason(100, tall[1] + wide[1]) == "L"
-    # V fits no shape -> 'V'
-    assert eng._dims_reject_reason(tall[0] + 1, 100) == "V"
-
-
-def test_stuck_meta_triggers_host_fallback():
-    """A kernel-flagged stuck/overrun traceback must be recomputed on the
-    host oracle, not decoded from the truncated move list."""
-    eng = PallasPOAEngine(interpret=True)
-    p = POAParams(local=True)
-    g = POAGraph()
-    g.add_sequence(encode_seq("ACGTACGT"), 1)
-    seq = encode_seq("ACGAACGT")
-    tasks = [(g, seq, p)]
-    results = [None]
-    # synthetic handle: garbage codes, meta slot 2 set -> stuck
-    codes = np.zeros((1, 8), dtype=np.int32)
-    meta = np.zeros((1, 4), dtype=np.int32)
-    meta[0, 0] = 3          # pretend 3 moves
-    meta[0, 2] = 1          # stuck flag
-    eng._decode((tasks, [0], [g.topo_order()], codes, meta), results)
-    assert eng.stuck_fallbacks == 1
-    assert results[0] == host_align(g, seq, p)
 
 
 def test_maf_consensus_row_pad_blanked(tmp_path):
@@ -149,35 +113,33 @@ def test_block_graph_cache_pipeline_identical(tmp_path):
 
 
 def test_overflow_growth_predictor_routes_divergent_blocks():
-    """A block whose estimated POA node count exceeds VW must be routed to
-    the host pool up front (not burn device rows before the in-kernel
-    overflow bail); near-identical blocks of the same size stay device-
-    eligible."""
+    """The device engine sizes a block's node capacity from its estimated
+    final POA node count: mutually divergent sequences get room for their
+    growth up front (not an in-kernel overflow and a native redo), while
+    near-identical blocks of the same size stay near their seed length."""
     import numpy as np
-    from smoothxg_tpu.ops.poa_pallas_fused import FusedPallasEngine
+    from smoothxg_jax.ops.poa_engine import BlockPOAEngine
 
-    eng = FusedPallasEngine(shape=(512, 1024), max_seqs=16, max_batch=4,
-                            interpret=True)
+    eng = BlockPOAEngine()
     rng = np.random.default_rng(7)
     bases = np.frombuffer(b"ACGT", np.uint8)
 
     def rand_seq(n):
-        return bases[rng.integers(0, 4, n)].astype(np.int32)
+        return bases[rng.integers(0, 4, n)]
 
-    # three mutually random 400-mers: mash distance ~1 -> est ~1200 > 512
-    divergent = [rand_seq(400) for _ in range(3)]
-    assert not eng._eligible(divergent)
-    assert eng.predicted_overflow == 1
+    # five mutually random 400-mers: mash distance ~1 -> est ~ sum(len)
+    divergent = [rand_seq(400) for _ in range(5)]
+    vcap, lcap, cells = eng.capacity(divergent)
+    assert vcap >= 2000 and lcap == 512
+    assert cells == (vcap + 1) * (lcap + 1)
 
     # same shape, near-identical sequences (one real substitution): mash
-    # distance near zero -> est ~ L0 -> device-eligible
+    # distance near zero -> est ~ L0
     s0 = rand_seq(400)
-    similar = [s0, s0.copy(), s0.copy()]
+    similar = [s0, s0.copy(), s0.copy(), s0.copy(), s0.copy()]
     similar[1][10] = bases[0] if similar[1][10] != bases[0] else bases[1]
-    assert eng._eligible(similar)
-    assert eng.predicted_overflow == 1
+    assert eng.capacity(similar)[0] <= 768
 
-    # below the sum(len) > VW gate the predictor must not even run
+    # below the sum(len) > 4*maxlen gate the proven sum bound is used
     small = [rand_seq(100), rand_seq(100)]
-    assert eng._eligible(small)
-    assert eng.predicted_overflow == 1
+    assert eng.capacity(small)[0] == 256

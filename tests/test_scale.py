@@ -12,31 +12,15 @@ land in blocks with no cross-copy mixing (the copies share no nodes).
 """
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.prep import prep
-from smoothxg_tpu.pipeline.run import Config, run_smoothing
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.io.synth import tile_gfa
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.prep import prep
+from smoothxg_jax.pipeline.run import Config, run_smoothing
 
 
-def _tile_gfa(src: str, dst: str, k: int) -> None:
-    lines = open(src).read().splitlines()
-    maxid = max(int(l.split("\t")[1]) for l in lines if l.startswith("S\t"))
-    with open(dst, "w") as out:
-        out.write("H\tVN:Z:1.0\n")
-        for c in range(k):
-            off = c * maxid
-            for l in lines:
-                f = l.split("\t")
-                if f[0] == "S":
-                    out.write(f"S\t{int(f[1]) + off}\t{f[2]}\n")
-                elif f[0] == "L":
-                    out.write(f"L\t{int(f[1]) + off}\t{f[2]}\t"
-                              f"{int(f[3]) + off}\t{f[4]}\t{f[5]}\n")
-                elif f[0] == "P":
-                    steps = ",".join(f"{int(s[:-1]) + off}{s[-1]}"
-                                     for s in f[2].split(","))
-                    out.write(f"P\t{f[1]}_copy{c}\t{steps}\t*\n")
+_tile_gfa = tile_gfa
 
 
 @pytest.mark.slow
@@ -68,9 +52,9 @@ def test_scale_10mbp_blockcache_and_spill(drb1_path, tmp_path, monkeypatch):
     import os
     import resource
 
-    from smoothxg_tpu.ops import poa_native
-    from smoothxg_tpu.pipeline import blocks as BL
-    from smoothxg_tpu.utils import blockcache as BC
+    from smoothxg_jax.ops import poa_native
+    from smoothxg_jax.pipeline import blocks as BL
+    from smoothxg_jax.utils import blockcache as BC
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
 
@@ -104,7 +88,7 @@ def test_scale_10mbp_blockcache_and_spill(drb1_path, tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_tiled_pipeline_end_to_end(drb1_path, tmp_path):
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
     tiled = str(tmp_path / "x3.gfa")

@@ -2,10 +2,10 @@
 round-trip fidelity, O(1) subseq semantics, and pipeline integration."""
 import os
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.graph.seqindex import SeqIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.pipeline.prep import prep
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.graph.seqindex import SeqIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.pipeline.prep import prep
 
 
 def _idx(drb1_path):
@@ -57,9 +57,9 @@ def test_seqindex_remove_deletes_file(drb1_path, tmp_path):
 def test_smooth_blocks_with_seqindex_matches(drb1_path, tmp_path):
     """smooth_blocks fed lazy mmap views must produce identical block
     results to the materialized-strings path."""
-    from smoothxg_tpu.ops.poa_host import POAParams
-    from smoothxg_tpu.pipeline.blocks import Blockset, smoothable_blocks
-    from smoothxg_tpu.pipeline.smooth import smooth_blocks
+    from smoothxg_jax.ops.poa_host import POAParams
+    from smoothxg_jax.pipeline.blocks import Blockset, smoothable_blocks
+    from smoothxg_jax.pipeline.smooth import smooth_blocks
     idx = _idx(drb1_path)
     bs = smoothable_blocks(idx, 700 * 12, 700, 5000, 5000)
     small = Blockset()

@@ -5,7 +5,7 @@ re-toposort-after-AddAlignment with an incremental linked list guarded by
 a position rule; when the guard rejects a matching-base aligned candidate
 it creates a fresh node (splitting the aligned group) where spoa would
 have reused.  That event is now COUNTED (guard_splits, in all engines:
-host oracle, native C++, fused + stacked Pallas) and this test measures
+host oracle, native C++, the CUDA kernel) and this test measures
 the actual output divergence against a spoa-faithful AddAlignment
 implementation (ops/poa_fused.SpoaFaithfulPOA: unguarded reuse + Kahn
 re-sort, reference semantics src/smooth.cpp:744-753 via deps/spoa).
@@ -19,15 +19,15 @@ live in PARITY.md ("spoa threading divergence").
 import numpy as np
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.ops.poa_fused import FusedPOA, SpoaFaithfulPOA
-from smoothxg_tpu.ops.poa_host import POAParams
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.breaks import break_blocks
-from smoothxg_tpu.pipeline.prep import prep
-from smoothxg_tpu.pipeline.smooth import _block_padding, _extract_block
-from smoothxg_tpu.utils.dna import encode_seq
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.ops.poa_fused import FusedPOA, SpoaFaithfulPOA
+from smoothxg_jax.ops.poa_host import POAParams
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.breaks import break_blocks
+from smoothxg_jax.pipeline.prep import prep
+from smoothxg_jax.pipeline.smooth import _block_padding, _extract_block
+from smoothxg_jax.utils.dna import encode_seq
 
 PARAMS = POAParams(1, 4, 6, 2, 26, 1, local=True)
 
@@ -117,7 +117,7 @@ def test_faithful_identical_on_synthetic_clean_block():
 
 
 def test_native_guard_split_counter_matches_oracle(drb1_states):
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
     states = sorted(drb1_states,

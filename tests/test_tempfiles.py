@@ -1,7 +1,7 @@
 """Temp-file registry (reference: src/tempfile.cpp exit-time wipe)."""
 import os
 
-from smoothxg_tpu.utils import tempfiles
+from smoothxg_jax.utils import tempfiles
 
 
 def test_create_register_cleanup(tmp_path):

@@ -3,13 +3,13 @@ byte/structure-identical to the serial path (reference parallelizes with
 OMP + ordered writers, src/smooth.cpp:1904, src/breaks.cpp:198)."""
 import pytest
 
-from smoothxg_tpu.graph.index import FlatIndex
-from smoothxg_tpu.io.gfa import read_gfa
-from smoothxg_tpu.ops.poa_host import POAParams
-from smoothxg_tpu.pipeline.blocks import smoothable_blocks
-from smoothxg_tpu.pipeline.breaks import break_blocks
-from smoothxg_tpu.pipeline.prep import prep
-from smoothxg_tpu.pipeline.smooth import smooth_blocks
+from smoothxg_jax.graph.index import FlatIndex
+from smoothxg_jax.io.gfa import read_gfa
+from smoothxg_jax.ops.poa_host import POAParams
+from smoothxg_jax.pipeline.blocks import smoothable_blocks
+from smoothxg_jax.pipeline.breaks import break_blocks
+from smoothxg_jax.pipeline.prep import prep
+from smoothxg_jax.pipeline.smooth import smooth_blocks
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def _sig(results):
 def test_parallel_breaks_match_serial(drb1_idx):
     bs, kw = _blockset(drb1_idx, split=True)
     # WFA clustering is expensive: 8 blocks is plenty to exercise the pool
-    from smoothxg_tpu.pipeline.blocks import Blockset
+    from smoothxg_jax.pipeline.blocks import Blockset
     small = Blockset()
     for b in list(bs)[:8]:
         small.add_block(b)
@@ -59,7 +59,7 @@ def test_parallel_breaks_match_serial(drb1_idx):
 def test_parallel_finalize_matches_serial(drb1_idx):
     bs, _ = _blockset(drb1_idx)
     bs = break_blocks(drb1_idx, bs, max_poa_length=1400)
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     engine = (poa_native.NativePOAEngine() if poa_native.available()
               else None)
     kw = dict(params=POAParams(local=True), consensus_base_name="c",
@@ -71,19 +71,19 @@ def test_parallel_finalize_matches_serial(drb1_idx):
 
 @pytest.mark.slow
 def test_pipelined_fused_matches_serial(drb1_idx):
-    """The fused engine's pipelined chunk-iterator path (threads>1) must
+    """The block engine's pipelined chunk-iterator path (threads>1) must
     produce block results identical to its serial poa_block_batch path."""
-    from smoothxg_tpu.ops.poa_pallas_fused import FusedPallasEngine
+    from smoothxg_jax.ops.poa_engine import BlockPOAEngine
     bs, _ = _blockset(drb1_idx)
     bs = break_blocks(drb1_idx, bs, max_poa_length=1400)
     kw = dict(params=POAParams(local=True), consensus_base_name="c",
               produce_maf=True)
     serial = smooth_blocks(
         drb1_idx, bs, threads=1,
-        engine=FusedPallasEngine(interpret=True, max_batch=4), **kw)
+        engine=BlockPOAEngine(max_batch=4), **kw)
     par = smooth_blocks(
         drb1_idx, bs, threads=2,
-        engine=FusedPallasEngine(interpret=True, max_batch=4, threads=2),
+        engine=BlockPOAEngine(max_batch=4, threads=2),
         **kw)
     assert _sig(serial) == _sig(par)
 
@@ -93,12 +93,12 @@ def test_parallel_consensus_specs_match_serial(drb1_path, tmp_path):
     """-C spec builds fan over the pool; outputs must be byte-identical
     to the serial shared-index path."""
     import os
-    from smoothxg_tpu.ops import poa_native
+    from smoothxg_jax.ops import poa_native
     if not poa_native.available():      # pragma: no cover
         pytest.skip("native engine unavailable")
-    from smoothxg_tpu.pipeline.consensus_graph import (
+    from smoothxg_jax.pipeline.consensus_graph import (
         build_consensus_specs, parse_consensus_spec)
-    from smoothxg_tpu.pipeline.run import Config, run_smoothing
+    from smoothxg_jax.pipeline.run import Config, run_smoothing
     out = str(tmp_path / "o.gfa")
     cfg = Config(gfa_in=drb1_path, smoothed_out=out, n_haps=12,
                  max_path_jump=5000, max_edge_jump=5000,
@@ -120,76 +120,3 @@ def test_parallel_consensus_specs_match_serial(drb1_path, tmp_path):
     assert f1 == f4 and len(f1) == 2
     for nm in f1:
         assert (d1 / nm).read_bytes() == (d4 / nm).read_bytes()
-
-
-class TestStealBalance:
-    """The host-steal selector must balance by the ONLINE rate estimates
-    (regression: a polluted device EMA once routed 310/384 blocks to a
-    3-worker pool while the chip idled)."""
-
-    def _engine(self, **kw):
-        from smoothxg_tpu.ops.poa_pallas_fused import FusedPallasEngine
-        return FusedPallasEngine(interpret=True, max_batch=4, threads=4,
-                                 devices=1, **kw)
-
-    def _blocks(self, n, L=256, reads=4):
-        import numpy as np
-        from smoothxg_tpu.ops.poa_host import POAParams
-        rng = np.random.default_rng(3)
-        p = POAParams(local=True)
-        out = []
-        for _ in range(n):
-            seqs = [rng.integers(65, 69, L).astype(np.uint8)
-                    for _ in range(reads)]
-            out.append((seqs, [1] * reads, p))
-        return out
-
-    def test_fast_device_steals_little(self):
-        eng = self._engine(steal=True)
-        blocks = self._blocks(32)
-        dev = {(True, False, 0): list(range(32))}
-        eng._dev_rows_ps = 1e9          # device essentially free
-        eng._host_cells_ps = 1e6        # pool very slow
-        stolen = eng._select_steal(blocks, dev)
-        assert len(stolen) <= 1
-
-    def test_slow_device_steals_much(self):
-        eng = self._engine(steal=True)
-        blocks = self._blocks(32)
-        dev = {(True, False, 0): list(range(32))}
-        eng._dev_rows_ps = 1e2          # device nearly dead
-        eng._host_cells_ps = 1e12       # pool essentially free
-        stolen = eng._select_steal(blocks, dev)
-        assert len(stolen) >= 30
-        # dev dict pruned consistently
-        remaining = sum(len(v) for v in dev.values())
-        assert remaining + len(stolen) == 32
-
-    def test_balanced_rates_split_roughly_evenly(self):
-        eng = self._engine(steal=True)
-        blocks = self._blocks(32)
-        dev = {(True, False, 0): list(range(32))}
-        # per-block: nat = 3*L*L cells, dev = 3*L rows.  Pick rates so one
-        # block costs the same on either side, pool width w_eff=3.
-        L = 256.0
-        eng._dev_rows_ps = 3 * L * 4      # 4 blocks/s on device
-        eng._host_cells_ps = 3 * L * L * 4 / 3  # 4 blocks/s across pool
-        stolen = eng._select_steal(blocks, dev)
-        assert 10 <= len(stolen) <= 22
-
-    def test_fresh_compile_skips_dev_ema(self):
-        """A run whose _launch compiled a new variant must not update the
-        device-rate EMA (compile stalls once collapsed it 90x)."""
-        eng = self._engine(steal=False)
-        blocks = self._blocks(3, L=64, reads=2)
-        before = eng._dev_rows_ps
-        for _ in eng.poa_block_batch_iter(blocks):
-            pass
-        # interpret mode never starts the watcher; emulate the gate check:
-        assert eng._fresh_compile is True       # first call compiled
-        assert eng._dev_rows_ps == before
-        eng2 = self._engine(steal=False)
-        eng2._warm_keys = set(eng._warm_keys)
-        for _ in eng2.poa_block_batch_iter(blocks):
-            pass
-        assert eng2._fresh_compile is False     # warmed keys -> not fresh
