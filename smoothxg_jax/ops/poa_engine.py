@@ -80,34 +80,30 @@ def estimate_final_v(seqs, k: int = 16, alpha: float = 3.0) -> float:
 class BlockPOAEngine:
     """Whole-block POA on a device through a kernel plug.
 
-    kernel       poa_cuda.cuda_kernel (GPU) or poa_cuda.reference_kernel
-    devices      jax devices the batches spread over (default: this
-                 process's local devices)
-    threads      native pool width for blocks the kernel cannot hold
-    batch_bytes  device scratch budget of one kernel call
-    block_bytes  largest scratch one block may take (else native)
-    max_batch    most blocks in one kernel call
+    kernel   poa_cuda.cuda_kernel (the GPU; `for_gpu` builds that engine)
+             or poa_cuda.reference_kernel (native/cpoa.cpp on the host, for
+             CPU tests of everything around the kernel)
+    devices  jax devices the batches spread over (default: this process's
+             local devices)
+    threads  native pool width for blocks the kernel cannot hold
     """
 
     VCAP_STEP = 256       # node-capacity granularity (limits shapes)
     EST_MARGIN = 1.25     # headroom over estimate_final_v
     LCAP_STEP = 128
     SCAP_STEP = 1024
+    BATCH_BYTES = 16 << 30   # device scratch of one kernel call, at most
+    BLOCK_BYTES = 4 << 30    # scratch one block may take (else native)
+    MAX_BATCH = 264          # most blocks in one kernel call
 
-    def __init__(self, kernel=None, *, devices=None, threads: int = 1,
-                 validate: bool = True, batch_bytes: int = 16 << 30,
-                 block_bytes: int = 4 << 30, max_batch: int = 264,
-                 ring_cap: int = RING_CAP):
+    def __init__(self, kernel, *, devices=None, threads: int = 1,
+                 validate: bool = True):
         import jax
         from . import poa_native
-        self.kernel = kernel or poa_cuda.reference_kernel
+        self.kernel = kernel
         self.devices = list(devices) if devices else jax.local_devices()
         self.threads = threads
         self.validate = validate
-        self.batch_bytes = batch_bytes
-        self.block_bytes = block_bytes
-        self.max_batch = max_batch
-        self.ring_cap = ring_cap
         self.fallback = poa_native.NativePOAEngine(threads=threads)
         self._jitted: dict = {}
         self.calls = 0
@@ -139,10 +135,11 @@ class BlockPOAEngine:
 
     # ---- routing ----
     def capacity(self, seqs) -> tuple[int, int, int] | None:
-        """(vcap, lcap, cells) the kernel needs for this block, or None
-        when the block is for the native engine (no sequences, a sequence
-        longer than the kernel's shared-memory row, or DP planes over the
-        per-block scratch limit)."""
+        """(vcap, lcap, scap) the kernel needs for this block: nodes,
+        longest sequence, and summed sequence length, each rounded to its
+        step.  None when the block is for the native engine (no sequences,
+        a sequence longer than the kernel's shared-memory row, or scratch
+        over BLOCK_BYTES)."""
         if not seqs:
             return None
         lens = [len(s) for s in seqs]
@@ -158,26 +155,29 @@ class BlockPOAEngine:
                      + self.VCAP_STEP)
         vcap = _round_up(max(vb, lens[0], 1), self.VCAP_STEP)
         lcap = _round_up(maxlen, self.LCAP_STEP)
-        cells = (vcap + 1) * (lcap + 1)
-        if 16 * cells > self.block_bytes:
+        scap = _round_up(sumlen, self.SCAP_STEP)
+        if 4 * poa_cuda.scratch_words(vcap, lcap, scap) > self.BLOCK_BYTES:
             return None
-        return vcap, lcap, cells
+        return vcap, lcap, scap
+
+    def call_bytes(self, chunk, caps) -> int:
+        """Device scratch of one kernel call: every block of it gets a
+        slab at the call's largest capacities."""
+        vcap, lcap, scap = (max(c) for c in zip(*(caps[i] for i in chunk)))
+        return 4 * len(chunk) * poa_cuda.scratch_words(vcap, lcap, scap)
 
     def _batches(self, idxs, caps):
         """Group device blocks into kernel calls: largest first, each call
-        under the scratch budget, at least one call per device."""
-        idxs = sorted(idxs, key=lambda i: caps[i][2], reverse=True)
+        within BATCH_BYTES, at least one call per device."""
+        idxs = sorted(idxs, key=lambda i: self.call_bytes([i], caps),
+                      reverse=True)
         per_call = max(1, math.ceil(len(idxs) / len(self.devices)))
-        per_call = min(per_call, self.max_batch)
+        per_call = min(per_call, self.MAX_BATCH)
         out: list[list[int]] = []
         cur: list[int] = []
         for i in idxs:
-            vcap = max([caps[j][0] for j in cur] + [caps[i][0]])
-            lcap = max([caps[j][1] for j in cur] + [caps[i][1]])
-            nb = len(cur) + 1
-            if cur and (nb > per_call
-                        or 16 * nb * (vcap + 1) * (lcap + 1)
-                        > self.batch_bytes):
+            if cur and (len(cur) + 1 > per_call or
+                        self.call_bytes(cur + [i], caps) > self.BATCH_BYTES):
                 out.append(cur)
                 cur = []
             cur.append(i)
@@ -186,13 +186,11 @@ class BlockPOAEngine:
         return out
 
     def pack(self, blocks, chunk, caps):
-        """Numpy kernel inputs for one call, shapes rounded to few buckets
-        (each distinct shape is one XLA compile of the thin wrapper)."""
-        vcap = max(caps[i][0] for i in chunk)
-        lcap = max(caps[i][1] for i in chunk)
-        B = _round_up(len(chunk), 4)
-        S = _round_up(max(sum(len(s) for s in blocks[i][0])
-                          for i in chunk), self.SCAP_STEP)
+        """Numpy kernel inputs for one call: one row per block, widths at
+        the call's largest capacities (each distinct shape is one XLA
+        compile of the thin wrapper)."""
+        vcap, lcap, S = (max(c) for c in zip(*(caps[i] for i in chunk)))
+        B = len(chunk)
         R = _pow2_at_least(max(len(blocks[i][0]) for i in chunk) + 1, 16)
         seqs = np.zeros((B, S), np.int8)
         offs = np.zeros((B, R), np.int32)
@@ -201,10 +199,9 @@ class BlockPOAEngine:
             sq, _, p = blocks[i]
             lens = np.fromiter((len(s) for s in sq), np.int64, len(sq))
             offs[b, 1:len(sq) + 1] = np.cumsum(lens)
-            if len(sq):
-                seqs[b, :int(lens.sum())] = np.concatenate(
-                    [np.asarray(s, np.uint8) for s in sq]).view(np.int8)
-            par[b] = poa_cuda.pack_params(p, len(sq), self.ring_cap)
+            seqs[b, :int(lens.sum())] = np.concatenate(
+                [np.asarray(s, np.uint8) for s in sq]).view(np.int8)
+            par[b] = poa_cuda.pack_params(p, len(sq), RING_CAP)
         return seqs, offs, par, vcap, lcap
 
     def _fn(self, vcap: int, lcap: int):

@@ -7,7 +7,7 @@ bases, rings, topo order, per-sequence paths, and groups."""
 import numpy as np
 import pytest
 
-from smoothxg_jax.ops import poa_native
+from smoothxg_jax.ops import poa_cuda, poa_native
 from smoothxg_jax.ops.poa_fused import FusedPOA
 from smoothxg_jax.ops.poa_host import POAParams
 from smoothxg_jax.ops.poa_engine import BlockPOAEngine
@@ -16,7 +16,7 @@ from smoothxg_jax.utils.dna import encode_seq
 
 @pytest.fixture(scope="module")
 def engine():
-    return BlockPOAEngine()
+    return BlockPOAEngine(poa_cuda.reference_kernel)
 
 
 def _random_block(rng):

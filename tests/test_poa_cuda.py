@@ -84,9 +84,8 @@ def test_cuda_overflow_redoes_natively(cuda_engine):
 
     class Tight(BlockPOAEngine):
         def capacity(self, seqs):
-            vcap, lcap, _ = super().capacity(seqs)
-            vcap = len(seqs[0])          # room for the seed only
-            return vcap, lcap, (vcap + 1) * (lcap + 1)
+            _, lcap, scap = super().capacity(seqs)
+            return len(seqs[0]), lcap, scap      # room for the seed only
 
     eng = Tight(cuda_engine.kernel, devices=cuda_engine.devices)
     g = eng.poa_block_batch(blocks)[0]

@@ -14,7 +14,7 @@ import pytest
 from smoothxg_jax.ops import poa_cuda, poa_native
 from smoothxg_jax.ops.poa_engine import (BlockPOAEngine, DeviceUnavailable,
                                          rehydrate_device_raw)
-from smoothxg_jax.ops.poa_fused import FusedPOA
+from smoothxg_jax.ops.poa_fused import RING_CAP, FusedPOA
 from smoothxg_jax.ops.poa_host import POAParams
 from smoothxg_jax.utils.dna import encode_seq
 
@@ -43,7 +43,7 @@ def _assert_matches_oracle(g, f, ctx):
 
 @pytest.fixture(scope="module")
 def engine():
-    return BlockPOAEngine()
+    return BlockPOAEngine(poa_cuda.reference_kernel)
 
 
 # ---- scheduler + decoding vs the fused oracle ----
@@ -97,7 +97,8 @@ def test_pack_layout(n_blocks, engine):
     chunk = list(range(n_blocks))
     seqs, offs, par, vcap, lcap = engine.pack(blocks, chunk, caps)
     B = seqs.shape[0]
-    assert B % 4 == 0 and B >= n_blocks
+    assert B == n_blocks                       # no padding blocks
+    assert seqs.shape[1] == max(c[2] for c in caps)
     assert seqs.shape[1] % engine.SCAP_STEP == 0
     assert offs.shape[0] == B
     assert offs.shape[1] >= max(16, max(len(b[0]) for b in blocks) + 1)
@@ -106,11 +107,11 @@ def test_pack_layout(n_blocks, engine):
     for b, (sq, _, p) in enumerate(blocks):
         R = len(sq)
         assert list(par[b, :11]) == [p.m, p.n, p.g, p.e, p.q, p.c, 0,
-                                     p.wb, p.wf_milli, R, engine.ring_cap]
+                                     p.wb, p.wf_milli, R, RING_CAP]
         for r, s in enumerate(sq):
             got = seqs[b, offs[b, r]:offs[b, r + 1]].view(np.uint8)
             assert np.array_equal(got, s)
-    assert not par[n_blocks:].any() and not seqs[n_blocks:].any()
+        assert not seqs[b, offs[b, R]:].any()    # row tail stays zero
 
 
 def test_pack_params_and_scratch_words():
@@ -124,17 +125,20 @@ def test_pack_params_and_scratch_words():
 
 def test_reference_batch_padding_and_lcap():
     enc = [encode_seq("ACGTACGTAC"), encode_seq("ACGTTCGTAC")]
-    eng = BlockPOAEngine()
+    eng = BlockPOAEngine(poa_cuda.reference_kernel)
     blocks = [(enc, [1, 1], MODES["local"])]
     caps = [eng.capacity(enc)]
     seqs, offs, par, vcap, lcap = eng.pack(blocks, [0], caps)
+    # an all-zero row (R = 0) decodes as an empty block
+    seqs, offs, par = (np.concatenate([a, np.zeros_like(a)])
+                       for a in (seqs, offs, par))
     meta, exp, paths = poa_cuda.reference_batch(seqs, offs, par,
                                                 vcap=vcap, lcap=lcap)
     V = len(poa_native.poa_block(enc, MODES["local"])[0])
     assert meta[0, 1] == 0 and meta[0, 0] == V
     assert np.array_equal(paths[0, :20], np.concatenate(
         poa_native.poa_block(enc, MODES["local"])[3:4]))
-    assert not meta[1:].any()                  # padding blocks stay empty
+    assert not meta[1:].any()                  # the R = 0 row stays empty
     meta, _, _ = poa_cuda.reference_batch(seqs, offs, par, vcap=vcap,
                                           lcap=5)
     assert meta[0, 1] == 1                     # longer than lcap: overflow
@@ -157,14 +161,18 @@ def test_capacity_routing(seqs, expect, engine):
         assert got is None
     else:
         assert got[:2] == expect
-        assert got[2] == (got[0] + 1) * (got[1] + 1)
+        assert got[2] == -(-sum(map(len, seqs)) // 1024) * 1024
 
 
 def test_capacity_respects_block_bytes():
     seqs = [np.frombuffer(b"ACGT" * 500, np.uint8)]
-    small = BlockPOAEngine(block_bytes=16 * 1000)
-    assert small.capacity(seqs) is None
-    assert BlockPOAEngine().capacity(seqs) is not None
+
+    class Small(BlockPOAEngine):
+        BLOCK_BYTES = 16 * 1000
+
+    assert Small(poa_cuda.reference_kernel).capacity(seqs) is None
+    assert BlockPOAEngine(poa_cuda.reference_kernel).capacity(seqs) \
+        is not None
 
 
 @pytest.mark.parametrize("n_dev,n_blocks,calls", [(1, 8, 1), (2, 8, 2),
@@ -172,8 +180,9 @@ def test_capacity_respects_block_bytes():
                                                   (8, 8, 8)])
 def test_batches_spread_over_devices(n_dev, n_blocks, calls):
     import jax
-    eng = BlockPOAEngine(devices=jax.devices()[:n_dev])
-    caps = [(256, 256, 257 * 257)] * n_blocks
+    eng = BlockPOAEngine(poa_cuda.reference_kernel,
+                         devices=jax.devices()[:n_dev])
+    caps = [(256, 256, 1024)] * n_blocks
     got = eng._batches(list(range(n_blocks)), caps)
     assert len(got) == calls
     assert sorted(i for c in got for i in c) == list(range(n_blocks))
@@ -181,11 +190,38 @@ def test_batches_spread_over_devices(n_dev, n_blocks, calls):
 
 def test_batches_split_on_scratch_budget():
     import jax
-    eng = BlockPOAEngine(devices=jax.devices()[:1],
-                         batch_bytes=16 * 3 * 257 * 257)
-    caps = [(256, 256, 257 * 257)] * 7
+
+    class Budget(BlockPOAEngine):
+        BATCH_BYTES = 3 * 4 * poa_cuda.scratch_words(256, 256, 1024)
+
+    eng = Budget(poa_cuda.reference_kernel, devices=jax.devices()[:1])
+    caps = [(256, 256, 1024)] * 7
     got = eng._batches(list(range(7)), caps)
     assert [len(c) for c in got] == [3, 3, 1]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_packed_calls_within_scratch_budget(seed):
+    """The scratch the kernel call is given (every block's slab at the
+    call's largest capacities) stays within BATCH_BYTES."""
+    import jax
+    rng = np.random.default_rng(300 + seed)
+    caps = [(int(rng.integers(1, 40)) * 256, int(rng.integers(1, 20)) * 128,
+             int(rng.integers(1, 30)) * 1024)
+            for _ in range(int(rng.integers(5, 60)))]
+    one = 4 * max(poa_cuda.scratch_words(*c) for c in caps)
+
+    class Budget(BlockPOAEngine):
+        BATCH_BYTES = int(one * rng.uniform(1.0, 6.0))
+
+    eng = Budget(poa_cuda.reference_kernel,
+                 devices=jax.devices()[:int(rng.integers(1, 3))])
+    chunks = eng._batches(list(range(len(caps))), caps)
+    assert sorted(i for c in chunks for i in c) == list(range(len(caps)))
+    for chunk in chunks:
+        vcap, lcap, scap = (max(c) for c in zip(*(caps[i] for i in chunk)))
+        assert 4 * len(chunk) * poa_cuda.scratch_words(vcap, lcap, scap) \
+            <= Budget.BATCH_BYTES
 
 
 # ---- overflow -> native redo ----
@@ -197,9 +233,8 @@ class _Tight(BlockPOAEngine):
         got = super().capacity(seqs)
         if got is None:
             return None
-        vcap, lcap, _ = got
         vcap = len(seqs[0])
-        return vcap, lcap, (vcap + 1) * (lcap + 1)
+        return vcap, got[1], got[2]
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -207,7 +242,7 @@ def test_overflow_redone_natively(mode):
     rng = np.random.default_rng(11)
     enc = [encode_seq(s) for s in _random_block(rng)]
     p = MODES[mode]
-    eng = _Tight()
+    eng = _Tight(poa_cuda.reference_kernel)
     g = eng.poa_block_batch([(enc, [1] * len(enc), p)])[0]
     _assert_matches_oracle(g, _oracle(enc, p), mode)
     assert eng.redo == 1 and eng.device_blocks == 0
@@ -223,8 +258,10 @@ def test_multi_device_equals_one_device(n_dev):
     for _ in range(10):
         enc = [encode_seq(s) for s in _random_block(rng)]
         blocks.append((enc, [1] * len(enc), MODES["local"]))
-    one = BlockPOAEngine(devices=jax.devices()[:1])
-    many = BlockPOAEngine(devices=jax.devices()[:n_dev])
+    one = BlockPOAEngine(poa_cuda.reference_kernel,
+                         devices=jax.devices()[:1])
+    many = BlockPOAEngine(poa_cuda.reference_kernel,
+                          devices=jax.devices()[:n_dev])
     for a, b in zip(one.poa_block_batch(blocks),
                     many.poa_block_batch(blocks)):
         assert a.base == b.base and a.seq_paths == b.seq_paths
@@ -366,3 +403,10 @@ def test_tile_gfa_copies(tmp_path):
 
 def test_native_engine_available():
     assert poa_native.available()
+
+
+def test_engine_needs_a_kernel_plug():
+    """No default kernel: a CPU run is never counted as device work by
+    accident."""
+    with pytest.raises(TypeError):
+        BlockPOAEngine()

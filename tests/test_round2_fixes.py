@@ -118,9 +118,10 @@ def test_overflow_growth_predictor_routes_divergent_blocks():
     growth up front (not an in-kernel overflow and a native redo), while
     near-identical blocks of the same size stay near their seed length."""
     import numpy as np
+    from smoothxg_jax.ops import poa_cuda
     from smoothxg_jax.ops.poa_engine import BlockPOAEngine
 
-    eng = BlockPOAEngine()
+    eng = BlockPOAEngine(poa_cuda.reference_kernel)
     rng = np.random.default_rng(7)
     bases = np.frombuffer(b"ACGT", np.uint8)
 
@@ -129,9 +130,9 @@ def test_overflow_growth_predictor_routes_divergent_blocks():
 
     # five mutually random 400-mers: mash distance ~1 -> est ~ sum(len)
     divergent = [rand_seq(400) for _ in range(5)]
-    vcap, lcap, cells = eng.capacity(divergent)
+    vcap, lcap, scap = eng.capacity(divergent)
     assert vcap >= 2000 and lcap == 512
-    assert cells == (vcap + 1) * (lcap + 1)
+    assert scap == 2048
 
     # same shape, near-identical sequences (one real substitution): mash
     # distance near zero -> est ~ L0

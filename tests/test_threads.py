@@ -73,17 +73,22 @@ def test_parallel_finalize_matches_serial(drb1_idx):
 def test_pipelined_fused_matches_serial(drb1_idx):
     """The block engine's pipelined chunk-iterator path (threads>1) must
     produce block results identical to its serial poa_block_batch path."""
+    from smoothxg_jax.ops import poa_cuda
     from smoothxg_jax.ops.poa_engine import BlockPOAEngine
+
+    class Small(BlockPOAEngine):
+        MAX_BATCH = 4
+
     bs, _ = _blockset(drb1_idx)
     bs = break_blocks(drb1_idx, bs, max_poa_length=1400)
     kw = dict(params=POAParams(local=True), consensus_base_name="c",
               produce_maf=True)
     serial = smooth_blocks(
         drb1_idx, bs, threads=1,
-        engine=BlockPOAEngine(max_batch=4), **kw)
+        engine=Small(poa_cuda.reference_kernel), **kw)
     par = smooth_blocks(
         drb1_idx, bs, threads=2,
-        engine=BlockPOAEngine(max_batch=4, threads=2),
+        engine=Small(poa_cuda.reference_kernel, threads=2),
         **kw)
     assert _sig(serial) == _sig(par)
 
